@@ -82,6 +82,11 @@ def pytest_configure(config):
     )
     config.addinivalue_line(
         "markers",
+        "cuda: needs a CUDA device (the PyTorch/CUDA port's kernels); skips "
+        "with a reason where there is none",
+    )
+    config.addinivalue_line(
+        "markers",
         "faults: deterministic fault-injection tests (ray_tpu._private."
         "faults) — they arm RAY_TPU_FAULTS / call faults.arm() and always "
         "disarm in teardown; seed the rand:<p> selector via "
