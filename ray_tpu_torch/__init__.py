@@ -1,12 +1,15 @@
 """ray_tpu_torch — the PyTorch/CUDA port of ray_tpu, slice by slice.
 
 The JAX package `ray_tpu` stays the reference; this package mirrors its
-module layout (`ops/`, `models/`, `serve/`) so each port sits beside the
-file it was ported from. It imports torch and never jax or ray_tpu.
+module layout (`ops/`, `models/`, `serve/`, `train/`) so each port sits
+beside the file it was ported from. It imports torch and never jax or
+ray_tpu.
 
-Entry points (`init_params`, `PagedDecodeEngine`, `paged_attention` on new
-tensors) run on the CUDA device unless the caller passes `device="cpu"`,
-and raise RuntimeError when CUDA is absent. Hand-written Hopper kernels
+Entry points (`init_params`, `PagedDecodeEngine`, `entry.entry`,
+`entry.train_bench`) run on the CUDA device unless the caller passes
+`device="cpu"`, and raise RuntimeError when CUDA is absent; ops such as
+`paged_attention` and `flash_attention` follow their tensors' device (a
+CUDA tensor launches the kernel). Hand-written Hopper kernels
 live under `csrc/` and are built with nvcc at first use
 (`ops/_kernels.py`).
 """

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, llama-family (port of the serving half of
-ray_tpu/models/transformer.py).
+"""Decoder-only transformer LM, llama-family (port of the serving and
+single-device training halves of ray_tpu/models/transformer.py).
 
 Parameters are a plain dict with the JAX tree's keys and shapes: every
 layer leaf is stacked along a leading [n_layers] dim, so a JAX tree
@@ -12,9 +12,14 @@ shared by all decode slots through per-slot block tables, attended in
 place by `ops.paged_attention` (the Hopper kernel on the card). Host-side
 allocation, prefix reuse and preemption live in models/kv_paging.py.
 
-Not ported yet: the training forward and loss, MoE, pipeline stages, the
-dense decoder, the gather attention path, the int8 pool and speculative
-verify.
+Training runs through `make_forward` / `make_loss_fn` on the head-major
+dense and flash routes (`ops.flash_attention`, the Hopper kernels on the
+card), with the remat policies "full", "flash_min" and "flash_qkv" as
+checkpointed segments; train/step.py adds the optimizer and the step.
+
+Not ported yet: MoE, ring/ulysses attention, pipeline stages, the remat
+policies "dots", "dots_no_batch" and "flash", the dense decoder, the
+gather attention path, the int8 pool and speculative verify.
 """
 
 from __future__ import annotations
@@ -24,12 +29,18 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from ..ops.attention import NEG_INF
+from ..ops.attention import NEG_INF, causal_attention_bhsd
+from ..ops.flash_attention import flash_attention
+from ..ops.losses import (
+    blockwise_softmax_cross_entropy,
+    softmax_cross_entropy_with_int_labels,
+)
 from ..ops.norm import rms_norm
 from ..ops.paged_attention import paged_attention
-from ..ops.rope import apply_rope, rope_frequencies
+from ..ops.rope import apply_rope, apply_rope_bhsd, rope_frequencies
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +62,24 @@ class TransformerConfig:
     # trailing vocab entries that exist only for alignment: the sampler
     # masks their logits so a padded id is never emitted
     vocab_pad: int = 0
+    # training forward: "dense" | "flash" (the Hopper kernels of
+    # ops/flash_attention.py); "ring" and "ulysses" are not ported yet
+    attention: str = "dense"
+    # per-layer rematerialization; see make_forward for what each policy
+    # keeps for the backward
+    remat: bool = True
+    remat_policy: str = "full"
+    # flash blocks: they choose the backward's route as in JAX (fused iff
+    # the sequence is one block and there is no GQA group), not the CUDA
+    # kernels' tiles
+    flash_block_q: int = 1024
+    flash_block_k: int = 1024
+    # accepted for the JAX configs' sake and ignored: the port always runs
+    # its layers as a Python loop
+    scan_layers: bool = True
+    # >0: the training loss projects and normalizes the logits in sequence
+    # chunks of this size (ops/losses.py blockwise_softmax_cross_entropy)
+    loss_chunk: int = 0
 
     def __post_init__(self):
         if self.mlp_variant not in ("silu_gate", "gelu"):
@@ -63,6 +92,21 @@ class TransformerConfig:
                 f"n_heads {self.n_heads} not a multiple of "
                 f"n_kv_heads {self.n_kv_heads}"
             )
+
+    def flops_per_token(self) -> float:
+        """Approximate training FLOPs/token (fwd+bwd ~ 3x the forward's
+        weight matmuls), as JAX's `flops_per_token`."""
+        attn = 2 * self.d_model * self.d_head * (self.n_heads + 2 * self.n_kv_heads)
+        attn += 2 * self.n_heads * self.d_head * self.d_model
+        n_mats = 2 if self.mlp_variant == "gelu" else 3
+        mlp = n_mats * 2 * self.d_model * self.d_ff
+        embed = 2 * self.d_model * self.vocab_size
+        return 3 * (self.n_layers * (attn + mlp) + embed)
+
+    def attention_flops_per_token(self, seq_len: int) -> float:
+        """Scores and values over the full seq_len (no causal halving),
+        fwd+bwd, as JAX counts them."""
+        return 3 * self.n_layers * (2 * 2 * seq_len * self.n_heads * self.d_head)
 
     def num_params(self) -> int:
         lp = (
@@ -87,7 +131,7 @@ CONFIGS: Dict[str, TransformerConfig] = {
     ),
     "gpt_1b": TransformerConfig(
         vocab_size=50304, d_model=2048, n_layers=14, n_heads=16, n_kv_heads=16,
-        d_head=128, d_ff=8192, max_seq_len=1024,
+        d_head=128, d_ff=8192, max_seq_len=1024, loss_chunk=256,
     ),
     "llama2_7b": TransformerConfig(
         vocab_size=32000, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=32,
@@ -224,6 +268,170 @@ def _unembed_matrix(cfg: TransformerConfig, params):
     if u is None:
         u = params["embed"].T
     return u.to(cfg.dtype)
+
+
+# --------------------------------------------------------------------------
+# training forward and loss
+# --------------------------------------------------------------------------
+
+_REMAT_POLICIES = ("full", "flash_min", "flash_qkv")
+_REMAT_NOT_PORTED = ("dots", "dots_no_batch", "flash")
+
+
+def _checkpoint(fn, *args):
+    """fn(*args) under a non-reentrant checkpoint: only the arguments are
+    kept, the rest is recomputed in backward. Without grad there is
+    nothing to keep and fn just runs."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def make_forward(cfg: TransformerConfig, _return_backbone: bool = False):
+    """Build forward(params, tokens[B, S]) -> logits [B, S, V] on the
+    head-major ([B, H, S, D]) routes of JAX's `make_forward` (:420):
+    `attention="dense"` (ops.attention.causal_attention_bhsd) and
+    `attention="flash"` (ops.flash_attention, the Hopper kernels on the
+    card, blocks clamped to the sequence).
+
+    Remat. `torch.utils.checkpoint` cannot choose what to save inside a
+    kernel launched through ctypes, so each layer is cut into segments
+    whose boundaries are exactly the residuals the JAX policy names:
+
+      1. norm -> q/k/v projections -> rope, ending at rope_q, rope_k and
+         attn_v;
+      2. attention: flash is its own autograd Function, whose ctx keeps
+         (q, k, v, out, lse) (flash_out and flash_lse); dense attention is
+         recomputed;
+      3. wo + residual + norm + gate/up, ending at mlp_gate and mlp_up;
+      4. the down projection.
+
+    Each segment runs under a checkpoint, so it keeps only its inputs.
+    "flash_min" keeps everything named above and never re-runs the
+    forward kernel in backward; "flash_qkv" merges segments 3 and 4, so
+    gate/up are recomputed; "full" checkpoints the whole layer (backward
+    re-runs it, forward kernel included); remat=False keeps everything.
+    "dots", "dots_no_batch" and "flash" are not ported yet and raise.
+
+    With `_return_backbone` returns (forward, backbone), backbone(params,
+    tokens) -> (final-norm hidden states, unembed in cfg.dtype)."""
+    if cfg.attention in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention={cfg.attention!r} is sequence-parallel and not ported "
+            f"yet (ROADMAP A, slice 4)"
+        )
+    if cfg.attention not in ("dense", "flash"):
+        raise ValueError(f"unknown attention {cfg.attention!r}")
+    policy = cfg.remat_policy if cfg.remat else None
+    if policy in _REMAT_NOT_PORTED:
+        raise NotImplementedError(
+            f"remat_policy={policy!r} is not ported yet (ROADMAP A, slice 2); "
+            f"the port has {_REMAT_POLICIES} and remat=False"
+        )
+    if policy is not None and policy not in _REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    gelu = cfg.mlp_variant == "gelu"
+    rope_tables: Dict[torch.device, Any] = {}
+
+    def attend(q, k, v):
+        if cfg.attention == "flash":
+            return flash_attention(
+                q, k, v, block_q=min(cfg.flash_block_q, q.shape[2]),
+                block_k=min(cfg.flash_block_k, k.shape[2]), layout="bhsd",
+            )
+        return causal_attention_bhsd(q, k, v)
+
+    def qkv(x, lp, cos, sin):
+        h = rms_norm(x, lp["attn_norm"])
+        q = torch.einsum("bse,ehd->bhsd", h, lp["wq"])
+        k = torch.einsum("bse,ekd->bksd", h, lp["wk"])
+        v = torch.einsum("bse,ekd->bksd", h, lp["wv"])
+        return apply_rope_bhsd(q, cos, sin), apply_rope_bhsd(k, cos, sin), v
+
+    def gate_up(x, attn, lp):
+        """x + attn @ wo, and the MLP's named residuals of its norm."""
+        x = x + torch.einsum("bhsd,hde->bse", attn, lp["wo"])
+        h = rms_norm(x, lp["mlp_norm"])
+        u = torch.einsum("bse,ef->bsf", h, lp["w_up"])
+        if gelu:
+            return x, u
+        return x, torch.einsum("bse,ef->bsf", h, lp["w_gate"]), u
+
+    def down(lp, *res):
+        if gelu:
+            act = torch.nn.functional.gelu(res[0], approximate="tanh")
+        else:
+            act = torch.nn.functional.silu(res[0]) * res[1]
+        return torch.einsum("bsf,fe->bse", act, lp["w_down"])
+
+    def mlp_block(x, attn, lp):
+        x, *res = gate_up(x, attn, lp)
+        return x + down(lp, *res)
+
+    def layer(x, lp, cos, sin):
+        return mlp_block(x, attend(*qkv(x, lp, cos, sin)), lp)
+
+    def layer_remat(x, lp, cos, sin):
+        if policy is None:
+            return layer(x, lp, cos, sin)
+        if policy == "full":
+            return _checkpoint(layer, x, lp, cos, sin)
+        q, k, v = _checkpoint(qkv, x, lp, cos, sin)
+        if cfg.attention == "flash":
+            attn = attend(q, k, v)
+        else:
+            attn = _checkpoint(attend, q, k, v)
+        if policy == "flash_qkv":
+            return _checkpoint(mlp_block, x, attn, lp)
+        x, *res = _checkpoint(gate_up, x, attn, lp)
+        return x + _checkpoint(down, lp, *res)
+
+    def backbone(params, tokens):
+        dev = tokens.device
+        if dev not in rope_tables:
+            rope_tables[dev] = rope_frequencies(cfg.d_head, cfg.max_seq_len,
+                                                cfg.rope_theta, device=dev)
+        cos, sin = rope_tables[dev]
+        x = params["embed"].to(cfg.dtype)[tokens.long()]
+        params = _cast_matmul_params(cfg, params)
+        layers = params["layers"]
+        for i in range(cfg.n_layers):
+            x = layer_remat(x, {key: val[i] for key, val in layers.items()},
+                            cos, sin)
+        x = rms_norm(x, params["final_norm"])
+        return x, _unembed_matrix(cfg, params)
+
+    def forward(params, tokens):
+        x, unembed = backbone(params, tokens)
+        return torch.einsum("bse,ev->bsv", x, unembed)
+
+    if _return_backbone:
+        return forward, backbone
+    return forward
+
+
+def make_loss_fn(cfg: TransformerConfig):
+    """loss_fn(params, {"tokens": [B, S+1], "mask": optional [B, S+1]})
+    -> mean next-token cross-entropy (JAX's `make_loss_fn` :1497), over
+    the full logits or, with cfg.loss_chunk, in sequence chunks."""
+    forward, backbone = make_forward(cfg, _return_backbone=True)
+
+    def loss_fn(params, batch):
+        tokens = batch["tokens"]
+        labels = tokens[:, 1:]
+        mask = batch.get("mask")
+        if mask is not None:
+            mask = mask[:, 1:].bool()
+        if cfg.loss_chunk:
+            x, unembed = backbone(params, tokens[:, :-1])
+            loss, _ = blockwise_softmax_cross_entropy(
+                x, unembed, labels, where=mask, chunk=cfg.loss_chunk)
+            return loss
+        logits = forward(params, tokens[:, :-1])
+        loss, _ = softmax_cross_entropy_with_int_labels(logits, labels, where=mask)
+        return loss
+
+    return loss_fn
 
 
 # --------------------------------------------------------------------------

@@ -29,13 +29,21 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of each source's entry points: name -> (argtypes, restype)
 SIGNATURES = {
     "paged_attention": {
         "paged_attention_launch": (
-            [_P] * 10 + [_I] * 8 + [ctypes.c_float] + [_I, _I] + [_P], _I,
+            [_P] * 10 + [_I] * 8 + [_F] + [_I, _I] + [_P], _I,
         ),
+    },
+    "flash_attention": {
+        # pointers, then B, H, KV, Lq, Lk, D (flash_dqkv: B, H, Lq, Lk, D),
+        # scale, causal, is_bf16, stream
+        "flash_fwd_launch": ([_P] * 5 + [_I] * 6 + [_F, _I, _I, _P], _I),
+        "flash_dq_launch": ([_P] * 7 + [_I] * 6 + [_F, _I, _I, _P], _I),
+        "flash_dkv_launch": ([_P] * 8 + [_I] * 6 + [_F, _I, _I, _P], _I),
+        "flash_dqkv_launch": ([_P] * 9 + [_I] * 5 + [_F, _I, _I, _P], _I),
     },
 }
 

@@ -38,3 +38,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope_bhsd(x: torch.Tensor, cos: torch.Tensor,
+                    sin: torch.Tensor) -> torch.Tensor:
+    """Head-major variant: x [B, H, seq, head_dim]. As in JAX, computed
+    in the INPUT dtype (tables cast to it, rotate-half as a roll with a
+    sign mask), not in f32 as `apply_rope` does: bf16 rounds at the same
+    places as the reference."""
+    d = x.shape[-1]
+    seq = x.shape[-2]
+    c = torch.cat([cos[:seq], cos[:seq]], dim=-1)[None, None].to(x.dtype)
+    s = torch.cat([sin[:seq], sin[:seq]], dim=-1)[None, None].to(x.dtype)
+    sign = torch.cat([-torch.ones(d // 2, dtype=x.dtype, device=x.device),
+                      torch.ones(d // 2, dtype=x.dtype, device=x.device)])
+    rotated = torch.roll(x, d // 2, dims=-1) * sign
+    return x * c + rotated * s

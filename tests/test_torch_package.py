@@ -89,6 +89,30 @@ def test_engine_defaults_to_cuda_and_refuses_cpu_fallback(no_cuda):
     assert eng.device.type == "cpu" and eng.pool["k"].device.type == "cpu"
 
 
+def test_training_entry_points_default_to_cuda(no_cuda):
+    """entry(), train_bench() and train_setup() need CUDA unless asked for
+    the CPU; on the CPU the train step runs flash attention's plain path
+    and launches no kernel."""
+    import dataclasses
+
+    from ray_tpu_torch import entry
+    from ray_tpu_torch.models.transformer import CONFIGS
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    for fn in (entry.entry, entry.train_bench, entry.train_setup):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()
+    cfg = dataclasses.replace(CONFIGS["tiny"], attention="flash",
+                              remat_policy="flash_min", dtype=torch.float32)
+    cfg, state, step, data = entry.train_setup("cpu", cfg=cfg, batch=2, seq=16)
+    before = dict(fa.flash_attention.launches)
+    state, metrics = step(state, data)
+    assert fa._LAST_IMPL == "plain" and fa._LAST_ROUTE == "split"
+    assert fa.flash_attention.launches == before
+    assert metrics["step"] == 1 and torch.isfinite(metrics["loss"])
+    assert state.params["embed"].device.type == "cpu"
+
+
 def test_paged_attention_on_cpu_reports_the_plain_path():
     pa = importlib.import_module("ray_tpu_torch.ops.paged_attention")
     rng = np.random.default_rng(0)
